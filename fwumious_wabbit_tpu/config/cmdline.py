@@ -1,18 +1,32 @@
 """Command line — same flag vocabulary as the reference
-(reference: src/cmdline.rs:9-322), plus TPU-specific extensions under the
-``fwt: TPU execution`` group (batch size, mesh shape, device selection).
+(reference: src/cmdline.rs:9-322), plus device-execution extensions under
+the ``fwt: device execution`` group (batch size, mesh shape, device
+selection).
 """
 
 from __future__ import annotations
 
 import argparse
 
+# words that mean a switch, not a directory: `--fwt_compile_cache on` once
+# created a cache directory named "on" in the working directory
+_SWITCH_WORDS = {"on", "true", "yes", "1", "false", "no", "0"}
+
+
+def compile_cache_arg(value: str) -> str:
+    """``--fwt_compile_cache``: a directory, or ``off``."""
+    if value.strip().lower() in _SWITCH_WORDS:
+        raise argparse.ArgumentTypeError(
+            f"{value!r} is not a directory: the cache is on by default; "
+            f"give a DIR to move it or 'off' to disable it")
+    return value
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fwt",
-        description="fwumious_wabbit_tpu: TPU-native online CTR engine "
-        "(LR + field-aware factorization machines + dense towers)",
+        description="fwumious_wabbit_tpu: accelerator-native online CTR "
+        "engine (LR + field-aware factorization machines + dense towers)",
     )
     # -- input / output ----------------------------------------------------
     p.add_argument("--data", "-d", help="File with input examples (also .gz/.zst)")
@@ -86,17 +100,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--convert_inference_regressor", help="Output path for inference model")
     p.add_argument("--weight_quantization", action="store_true")
 
-    # -- hogwild flags accepted for CLI compatibility; on TPU these select the
+    # -- hogwild flags accepted for CLI compatibility; here they select the
     #    synchronous large-batch data-parallel path (see parallel/) -----------
     p.add_argument("--hogwild_training", action="store_true")
     p.add_argument("--hogwild_threads", type=int, default=None)
 
-    # -- TPU execution extensions (not in the reference) ----------------------
-    g = p.add_argument_group("fwt: TPU execution")
+    # -- device execution extensions (not in the reference) -------------------
+    g = p.add_argument_group("fwt: device execution")
     g.add_argument("--fwt_batch_size", type=int, default=1024,
                    help="Device batch size for the synchronous training step")
     g.add_argument("--fwt_platform", default=None,
-                   help="Force a JAX platform (cpu/tpu); default: auto")
+                   help="Force a JAX platform (cpu/cuda); default: auto")
     g.add_argument("--fwt_pack_cache", choices=["auto", "on", "off"],
                    default="auto",
                    help="Cache the packed superbatch stream "
@@ -106,12 +120,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto = engage when -c is given (like the record "
                         "cache); on = always; off = never")
     g.add_argument("--fwt_compile_cache", default=None, metavar="DIR",
+                   type=compile_cache_arg,
                    help="Persistent XLA compilation cache directory "
-                        "(skips recompiles across processes; also pins "
-                        "one compiled program where the compiler is "
-                        "run-to-run nondeterministic). Default: "
-                        "~/.cache/fwt_xla on non-CPU platforms; 'off' "
-                        "disables")
+                        "(skips recompiles across processes and keeps one "
+                        "autotuned program). JAX_COMPILATION_CACHE_DIR, "
+                        "when set, wins; default: .jax_cache in the "
+                        "repository checkout, except for runs pinned to "
+                        "the CPU; 'off' disables")
     g.add_argument("--fwt_data_axis", type=int, default=None,
                    help="Number of devices on the data-parallel mesh axis")
     g.add_argument("--fwt_table_axis", type=int, default=1,
@@ -142,12 +157,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "scopes with power_t 0, whose constant rate makes "
                         "the summed form diverge at large batch. Identical "
                         "at batch size 1 in every mode")
-    g.add_argument("--fwt_pallas_update", choices=["off", "on", "auto"],
-                   default="auto",
-                   help="Route sparse AdaGrad updates through the Pallas "
-                        "table-sweep kernel (1.4-11x the XLA scatter for "
-                        "tables >= 2^26 on v5e); 'auto' applies its measured "
-                        "size/density rule")
     g.add_argument("--fwt_batch_cap", type=float, default=8.0,
                    help="Multiplicity cap for --fwt_batch_mean (1.0 = pure "
                         "per-weight mean)")
@@ -165,7 +174,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--fwt_superbatch", type=int, default=0, metavar="K",
                    help="Pack K consecutive train batches into one "
                         "host→device transfer + one scanned dispatch "
-                        "(amortizes per-RPC link latency; trajectory "
+                        "(amortizes per-call link latency; trajectory "
                         "identical to K separate steps). 0 = auto "
                         "(8 on the native single-device path), 1 = off")
     g.add_argument("--fwt_bitpack", choices=["auto", "on", "off"],
@@ -192,7 +201,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write each packed step's predictions into a "
                         "device-resident [M, K, B] ring inside the step "
                         "program and fetch the ring once per M "
-                        "superbatches — M× fewer device→host fetch RPCs "
+                        "superbatches — M× fewer device→host fetches "
                         "with zero extra dispatches. Pure transfer "
                         "plumbing — written predictions are identical. "
                         "0 = auto (default): per-step async fetches until "

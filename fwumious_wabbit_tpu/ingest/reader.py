@@ -14,7 +14,13 @@ def create_buffered_input(path: str | Path, buffer_size: int = 1 << 20):
     if p.endswith(".gz"):
         return io.BufferedReader(gzip.open(p, "rb"), buffer_size)
     if p.endswith(".zst"):
-        import zstandard
+        try:
+            import zstandard
+        except ImportError as e:
+            raise RuntimeError(
+                f"{p}: reading .zst input needs the 'zstandard' package, "
+                f"which is not installed; decompress the file first or "
+                f"install it") from e
 
         fh = open(p, "rb")
         return io.BufferedReader(zstandard.ZstdDecompressor().stream_reader(fh), buffer_size)

@@ -14,7 +14,7 @@ src/feature_buffer.rs:137-338):
   src/feature_buffer.rs:279-336). We store the plain field index (the
   reference stores ``field_idx * ffm_k``).
 
-Unlike the reference's one-example-at-a-time design, the TPU framework feeds
+Unlike the reference's one-example-at-a-time design, this framework feeds
 the device **fixed-shape padded batches**; :class:`Batcher` pads the
 variable-length feature lists into bucketed dense arrays. Padding entries use
 id 0 / value 0.0, which contribute exactly zero to forward outputs and

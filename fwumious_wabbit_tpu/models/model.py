@@ -28,6 +28,7 @@ whole step — but the math is the same:
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -183,8 +184,7 @@ class FwModel:
     """Static model structure + parameter init + forward math.
 
     Parameters are a plain dict pytree. The hashed tables are stored in the
-    TPU-native **row layout** ``[num_rows, 128]`` (see ops/tables.py — scalar
-    gathers are pathological on TPU; row gathers are fast):
+    **row layout** ``[num_rows, 128]`` (see ops/tables.py):
       lr_w [R_lr, 128], lr_acc [R_lr, 128]?,
       ffm_w [R_ffm, 128], ffm_acc?,
       nn: list of {'w': [in,out] f32, 'b': [out], 'w_acc'?, 'b_acc'?},
@@ -193,11 +193,12 @@ class FwModel:
     """
 
     def __init__(self, mi: ModelInstance, precision: str = "highest",
-                 batch_mean_mode: str = "auto", batch_cap: float = 8.0,
-                 pallas_update: str = "auto"):
-        # precision: 'highest' = full f32 contractions (parity with the f32
-        # reference); 'default' = TPU-native bf16 MXU inputs with f32
-        # accumulation (throughput mode; statistical parity only).
+                 batch_mean_mode: str = "auto", batch_cap: float = 8.0):
+        # precision of the model's dense contractions (FFM contra tensor,
+        # LR combo sums, tower): 'highest' = full f32 (parity with the f32
+        # reference); 'default' = TF32 tensor-core inputs on the GPU, ~10
+        # mantissa bits (throughput mode; statistical parity only). The
+        # table selections and dedup sums (ops/tables.py) are exact either way.
         #
         # batch_mean_mode ('off'|'on'|'auto', --fwt_batch_mean): cap each
         # weight's effective per-batch multiplicity at batch_cap
@@ -242,12 +243,10 @@ class FwModel:
         self.opt_lr = ScopedOptimizer(kind, mi.learning_rate, mi.power_t,
                                       mi.init_acc_gradient,
                                       batch_mean=bm(mi.power_t),
-                                      batch_cap=batch_cap,
-                                      pallas_mode=pallas_update)
+                                      batch_cap=batch_cap)
         self.opt_ffm = ScopedOptimizer(
             kind, mi.ffm_learning_rate, mi.ffm_power_t, mi.ffm_init_acc_gradient,
             batch_mean=bm(mi.ffm_power_t), batch_cap=batch_cap,
-            pallas_mode=pallas_update,
         )
         self.opt_nn = ScopedOptimizer(
             kind, mi.nn_learning_rate, mi.nn_power_t, mi.nn_init_acc_gradient
@@ -273,67 +272,93 @@ class FwModel:
 
     # -- init ----------------------------------------------------------------
 
-    def init_params(self, seed: int = 0) -> dict:
+    def init_params(self, seed: int = 0, mesh=None) -> dict:
+        """Fresh parameters. With a ``mesh`` ('data', 'table'), every table
+        is built already row-sharded over the table axis (its rows rounded
+        up to a multiple of that axis; rows past the hash range are never
+        addressed): no device ever holds a whole table, and the rest is
+        replicated."""
+        if mesh is None:
+            params = self._init_tables(1)
+        else:
+            from ..parallel import mesh as pmesh
+
+            n_table = mesh.shape[pmesh.TABLE_AXIS]
+            build = functools.partial(self._init_tables, n_table)
+            params = jax.jit(build, out_shardings=pmesh.param_sharding(
+                mesh, jax.eval_shape(build)))()
+
+        params.update(self.init_tower())
+        if mesh is not None:
+            params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+        return params
+
+    def _init_tables(self, row_multiple: int) -> dict:
+        """The hashed tables and their optimizer state, built on device with
+        their row counts rounded up to ``row_multiple``."""
         mi = self.mi
+        lr_rows = tables.round_up(self.lr_spec.num_rows, row_multiple)
         # jnp.full broadcasts on device; jnp.zeros would materialize on the
         # host and transfer the whole table
         params: dict = {
-            "lr_w": jnp.full((self.lr_spec.num_rows, tables.LANE), 0.0, jnp.float32)
+            "lr_w": jnp.full((lr_rows, tables.LANE), 0.0, jnp.float32)
         }
         if self.opt_lr.has_state:
             params["lr_acc"] = jnp.full(
-                (self.lr_spec.num_rows, tables.LANE),
-                self.opt_lr.initial_acc(), jnp.float32,
-            )
+                (lr_rows, tables.LANE), self.opt_lr.initial_acc(), jnp.float32)
 
         if self.has_ffm:
             # merand48-based init evaluated ON DEVICE (ops/init.py) — host
-            # generation + transfer of multi-GB tables dominated startup
+            # generation + transfer of multi-GB tables dominated startup;
+            # floats past the table's size (its padding) are zero
             from ..ops import init as ffm_init
 
             n = self.ffm_size
+            rows = tables.round_up(self.ffm_spec.num_rows, row_multiple)
+            padded = rows * tables.LANE
             if mi.ffm_initialization_type != "default":
                 raise ValueError("Please select a valid activation function.")
             if mi.ffm_init_width == 0.0:
                 # (merand48(len+i) − 0.5) / √k / 50
                 # (reference: src/block_ffm.rs:796-806)
-                w = ffm_init.ffm_init_default(n, self.ffm_k, self.ffm_spec.padded_size)
+                w = ffm_init.ffm_init_default(n, self.ffm_k, padded)
             else:
                 # center/width/zero-band scheme (reference: src/block_ffm.rs:807-822)
                 w = ffm_init.ffm_init_band(
-                    n, self.ffm_spec.padded_size, mi.ffm_init_width,
+                    n, padded, mi.ffm_init_width,
                     mi.ffm_init_zero_band, mi.ffm_init_center,
                 )
-            params["ffm_w"] = w.reshape(self.ffm_spec.num_rows, tables.LANE)
+            params["ffm_w"] = w.reshape(rows, tables.LANE)
             if self.opt_ffm.has_state:
                 params["ffm_acc"] = jnp.full(
-                    (self.ffm_spec.num_rows, tables.LANE),
-                    self.opt_ffm.initial_acc(), jnp.float32,
-                )
-
-        if self.has_nn:
-            # reference-exact init: each layer seeds a Xoshiro256++ from its
-            # (emulated) tape offsets and draws Xavier-uniform / Hu-normal
-            # weights through rand's exact float pipeline — bit-compatible
-            # with the reference (reference: src/block_neural.rs:382-418;
-            # offsets via models/ref_offsets.py)
-            from . import ref_offsets
-
-            offs = ref_offsets.reference_nn_offsets(
-                self.num_combos,
-                self.num_fields if self.has_ffm else 0,
-                self.topology,
-                [(s.width, s.layernorm, s.activation) for s in self.nn_layers],
-            )
-            layers = []
-            d = self.joined_width
-            for spec, off in zip(self.nn_layers, offs[:-1]):
-                layers.append(self._init_layer(off, d, spec.width, spec.init))
-                d = spec.width
-            params["nn"] = layers
-            final_in = d + (self.joined_width if self.topology != "two" else 0)
-            params["final"] = self._init_layer(offs[-1], final_in, 1, "one")
+                    (rows, tables.LANE), self.opt_ffm.initial_acc(), jnp.float32)
         return params
+
+    def init_tower(self) -> dict:
+        """The tower's layers and readout (empty without a tower)."""
+        if not self.has_nn:
+            return {}
+        # reference-exact init: each layer seeds a Xoshiro256++ from its
+        # (emulated) tape offsets and draws Xavier-uniform / Hu-normal
+        # weights through rand's exact float pipeline — bit-compatible
+        # with the reference (reference: src/block_neural.rs:382-418;
+        # offsets via models/ref_offsets.py)
+        from . import ref_offsets
+
+        offs = ref_offsets.reference_nn_offsets(
+            self.num_combos,
+            self.num_fields if self.has_ffm else 0,
+            self.topology,
+            [(s.width, s.layernorm, s.activation) for s in self.nn_layers],
+        )
+        layers = []
+        d = self.joined_width
+        for spec, off in zip(self.nn_layers, offs[:-1]):
+            layers.append(self._init_layer(off, d, spec.width, spec.init))
+            d = spec.width
+        final_in = d + (self.joined_width if self.topology != "two" else 0)
+        return {"nn": layers,
+                "final": self._init_layer(offs[-1], final_in, 1, "one")}
 
     def _init_layer(self, off, fan_in: int, fan_out: int, init: str) -> dict:
         from ..ops import xoshiro
@@ -411,8 +436,8 @@ class FwModel:
         """[B, N, F·k] embedding slabs → (slabs, aux for backward).
 
         Feature hash h owns the aligned flat window starting at
-        ``h & ~(align−1)`` (see ops/tables.py — a TPU-friendly re-design of
-        the reference's overlapping windows, src/block_ffm.rs:92-95)."""
+        ``h & ~(align−1)`` (see ops/tables.py — an aligned re-design of the
+        reference's overlapping windows, src/block_ffm.rs:92-95)."""
         return tables.gather(params["ffm_w"], batch["ffm_ids"], self.ffm_spec)
 
     def ffm_outputs(self, emb, batch) -> jnp.ndarray:

@@ -1,15 +1,15 @@
 """ctypes bindings for the C++ host-ingest engine (fw_native.cpp).
 
 The native engine parses VW text and translates features into dense padded
-batches, multi-threaded — the TPU-side equivalent of the reference's Rust
+batches, multi-threaded — this engine's equivalent of the reference's Rust
 parser + FeatureBufferTranslator hot path (reference: src/parser.rs:214-461,
 src/feature_buffer.rs:137-338). The Python implementations in
 ``ingest/parser.py`` / ``ingest/translator.py`` are the semantics oracle;
 tests cross-check the two.
 
-``load()`` compiles the shared library on first use (g++ is in the image) and
-returns None if no toolchain is available — callers fall back to the Python
-path. Transformed namespaces (``--transform``) ARE implemented natively
+``load()`` compiles the shared library on first use (``make`` and a C++17
+compiler) and returns None, with a warning that says why, if it cannot —
+callers fall back to the Python path. Transformed namespaces (``--transform``) ARE implemented natively
 (fw_core.h transform executors, wired via fwn_create's transform tables below
 and cross-checked against the Python oracle in tests/test_native_transforms.py).
 """
@@ -17,6 +17,7 @@ and cross-checked against the Python oracle in tests/test_native_transforms.py).
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import subprocess
 import threading
@@ -29,6 +30,7 @@ _SO = _DIR / "libfw_native.so"
 _lock = threading.Lock()
 _lib = None
 _lib_tried = False
+_log = logging.getLogger(__name__)
 
 
 def load():
@@ -41,13 +43,21 @@ def load():
         try:
             # Always invoke make (it is a no-op when up to date) so edits to
             # ANY of the sources the Makefile tracks (fw_core.h, fw_ffi.cpp,
-            # fw_native.cpp, the Makefile itself) trigger a rebuild.
+            # fw_native.cpp, the Makefile itself) trigger a rebuild. Only
+            # this library: the weight_patcher tool links zlib, and a
+            # missing zlib must not take the ingest engine down with it.
             subprocess.run(
-                ["make", "-C", str(_DIR), "-s"],
+                ["make", "-C", str(_DIR), "-s", _SO.name],
                 check=True, capture_output=True, text=True,
             )
             lib = ctypes.CDLL(str(_SO))
-        except Exception:
+        except subprocess.CalledProcessError as e:
+            _log.warning("native engine unavailable: build failed (%s); "
+                         "using the Python ingest", e.stderr.strip()[-500:])
+            return None
+        except OSError as e:
+            _log.warning("native engine unavailable (%s); using the Python "
+                         "ingest", e)
             return None
         _configure(lib)
         _lib = lib

@@ -4,7 +4,7 @@
 // This is the native equivalent of the reference's hot host path
 // (reference: src/parser.rs:214-461 byte-level record parsing,
 // src/feature_buffer.rs:137-338 combo/field translation) re-shaped for
-// batched TPU consumption: instead of one packed record at a time feeding a
+// batched device consumption: instead of one packed record at a time feeding a
 // per-example learner, a *block* of text lines is parsed and translated in
 // parallel into structure-of-arrays feature lists, which are then scattered
 // into dense padded [B, L] / [B, N] arrays the device consumes directly.

@@ -8,12 +8,12 @@ Update rules are bit-faithful to the reference (reference: src/optimizer.rs):
   updates are zeroed (src/optimizer.rs:76-89)
 * AdagradLUT: a 2^11-entry table indexed by the top 11 bits of acc's f32 bit
   pattern; each entry averages ``lr * x^(-power_t)`` at the bucket edges with
-  ``initial_acc_gradient`` folded in (src/optimizer.rs:96-162). On TPU the
-  table lives comfortably in VMEM/SMEM and the lookup vectorizes as a gather.
+  ``initial_acc_gradient`` folded in (src/optimizer.rs:96-162). The hot
+  path recomputes the bucket value arithmetically instead of gathering it.
 
 **Batch semantics.** The reference is an online learner: one update per
 weight per example, gradient summed over the example's contributions first
-(reference: src/block_ffm.rs:265-288, SPEED.md). The batched TPU step
+(reference: src/block_ffm.rs:265-288, SPEED.md). The batched step
 preserves this per-example shape — ``tables.dedup_rows`` segment-sums each
 example's contributions per weight before the update, so per weight:
 
@@ -40,9 +40,10 @@ FASTMATH_LR_LUT_SIZE = 1 << FASTMATH_LR_LUT_BITS
 
 # Smallest normal f32. Denormal bucket edges are flushed to zero in BOTH the
 # table (build_lut) and the arithmetic hot path (lut_rate_compute) so the two
-# are bit-identical: XLA's pow flushes denormal inputs (TPU FTZ semantics)
-# while numpy's does not. A denormal accumulator is unreachable on TPU (the
-# g² accumulation itself flushes), so this deviates from the reference table
+# are bit-identical: XLA's pow may flush denormal inputs (flush-to-zero
+# arithmetic) while numpy's does not. Under flush-to-zero a denormal
+# accumulator is unreachable (the g² accumulation itself flushes), so this
+# deviates from the reference table
 # only in buckets that cannot be hit; flushed buckets fall back to plain
 # ``learning_rate``, same as the acc==0 bucket (reference: src/optimizer.rs:
 # 121-144 builds huge-but-finite entries there instead).
@@ -86,8 +87,8 @@ def lut_rate(acc: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
 
     Table-lookup form — used in scalar/unit-test contexts. The hot path uses
     :func:`lut_rate_compute`, which evaluates the same bucket function
-    arithmetically (a 2M-element gather from a 2048-entry table lowers to a
-    sequential loop on TPU; recomputing is pure VPU work)."""
+    arithmetically (recomputing is elementwise work that fuses into the
+    update; a per-element table gather does not)."""
     key = jax.lax.shift_right_logical(
         jax.lax.bitcast_convert_type(acc, jnp.uint32),
         jnp.uint32(31 - FASTMATH_LR_LUT_BITS),
@@ -103,8 +104,8 @@ def lut_rate_compute(acc: jnp.ndarray, learning_rate: float, power_t: float,
     ``acc`` to its 11-bit bucket (sign+exponent+mantissa MSBs of the f32 bit
     pattern), evaluate ``lr·x^(−power_t)`` at both bucket edges with
     ``initial_acc_gradient`` folded in, average, and clamp non-finite entries
-    to ``lr`` (reference: src/optimizer.rs:121-156). On TPU this is bitcasts,
-    shifts and two pows on the VPU — no memory-bound table gather.
+    to ``lr`` (reference: src/optimizer.rs:121-156): bitcasts, shifts and
+    two pows — no memory-bound table gather.
     """
     shift = jnp.uint32(31 - FASTMATH_LR_LUT_BITS)
     key = jax.lax.shift_right_logical(
@@ -141,7 +142,7 @@ class ScopedOptimizer:
 
     def __init__(self, kind: int, learning_rate: float, power_t: float,
                  initial_acc_gradient: float, batch_mean: bool = False,
-                 batch_cap: float = 8.0, pallas_mode: str = "auto"):
+                 batch_cap: float = 8.0):
         self.kind = kind
         self.learning_rate = float(learning_rate)
         self.power_t = float(power_t)
@@ -151,11 +152,6 @@ class ScopedOptimizer:
         # cap=1.0 is a pure per-weight mean.
         self.batch_mean = bool(batch_mean)
         self.batch_cap = float(batch_cap)
-        # pallas_mode ('off'|'on'|'auto'): route apply_rows through the
-        # table-sweep kernel (ops/pallas/sparse_update.py — measured
-        # 1.4–11× the XLA scatter path for tables ≥ 2^26 on v5e); 'auto'
-        # uses its measured size/density rule, TPU only.
-        self.pallas_mode = pallas_mode
         self.lut = (
             build_lut(learning_rate, power_t, initial_acc_gradient)
             if kind == OPT_ADAGRAD_LUT
@@ -165,21 +161,6 @@ class ScopedOptimizer:
     @property
     def has_state(self) -> bool:
         return self.kind != OPT_SGD
-
-    def _use_pallas(self, num_rows: int, num_updates: int) -> bool:
-        if self.pallas_mode == "off":
-            return False
-        import jax
-
-        if jax.default_backend() != "tpu":
-            return False
-        from .pallas.sparse_update import _pick_chunk, worth_it
-
-        if _pick_chunk(num_rows) < 512:  # tiny/odd tables: not worth a sweep
-            return False
-        if self.pallas_mode == "on":
-            return True
-        return worth_it(num_rows, num_updates)
 
     def initial_acc(self) -> float:
         """Initial per-weight accumulator. For LUT the initial gradient is
@@ -247,14 +228,6 @@ class ScopedOptimizer:
                 grows = grows * self.count_factor(counts)[:, None]
             else:
                 grows = batch_mean_grads(w.shape[0], rid, grows, self.batch_cap)
-        if self._use_pallas(w.shape[0], rid.shape[0]):
-            from .pallas.sparse_update import sparse_adagrad_update
-
-            return sparse_adagrad_update(
-                w, acc if self.kind != OPT_SGD else None, rid, grows,
-                self.learning_rate, self.power_t, self.initial_acc_gradient,
-                kind=self.kind,
-            )
         if self.kind == OPT_SGD:
             return w.at[rid].add(-self.learning_rate * grows), acc
         acc_new = acc.at[rid].add(grows * grows)

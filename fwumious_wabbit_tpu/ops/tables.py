@@ -1,14 +1,14 @@
-"""Row-structured hashed weight tables — the TPU-native layout for the
-reference's flat f32 weight arenas (reference: src/block_lr.rs:57-67,
-src/block_ffm.rs:40-95).
+"""Row-structured hashed weight tables — the layout of the reference's
+flat f32 weight arenas (reference: src/block_lr.rs:57-67,
+src/block_ffm.rs:40-95) used by every device step.
 
-Why rows: XLA lowers a gather of K *scalars* from a large table into a
-sequential per-element loop (~1 µs/element on TPU — measured 291 ms for 256k
-scalars from a 2^25 table), while a gather of K *128-lane rows* runs through
-the vector memory path (~4.7 ms for 256k rows, 60× more useful bytes). So
-every table is stored as ``[num_rows, 128]`` f32 and all sparse traffic —
-forward gathers, AdaGrad read-modify-write updates — moves whole rows.
-Sub-row selection is a one-hot contraction (MXU/VPU work, effectively free).
+Every table is stored as ``[num_rows, 128]`` f32 and all sparse traffic —
+forward gathers, AdaGrad read-modify-write updates — moves whole 512-byte
+rows: one row gather per lookup and one row scatter per update, with the
+sub-row selection done as a one-hot contraction at HIGHEST precision (an
+exact select: one product of 1.0 and the weight per output, the rest exact
+zeros). Whether a flat table with scalar gathers serves the GPU better is
+an open measurement (ROADMAP, Design 4).
 
 Addressing:
 
@@ -44,6 +44,11 @@ import jax.numpy as jnp
 
 LANE = 128
 LANE_BITS = 7
+
+# one-hot selections and the dedup sums are exact only at full f32
+# precision: a float32 contraction that names no precision may run in TF32
+# on the GPU, which keeps ~10 mantissa bits of every weight it selects
+EXACT = jax.lax.Precision.HIGHEST
 
 
 def _next_pow2(n: int) -> int:
@@ -85,33 +90,7 @@ def make_spec(logical_size: int, slab: int) -> TableSpec:
         align = round_up(slab, LANE)
         rows_per_slab = align // LANE
     padded = round_up(max(logical_size, align), LANE * rows_per_slab)
-    if padded // LANE > 2048:
-        # large tables: pad the row count to a multiple of the Pallas
-        # sparse-update sweep chunk (2048 rows) so the kernel's equal-size
-        # grid applies (ops/pallas/sparse_update.py). The reference-format
-        # guard band (2^b + F·k weights) otherwise leaves an odd row count.
-        # ≤ 1 MB of extra zero rows; invisible to persistence (to_flat trims
-        # to logical_size).
-        import math
-
-        unit = LANE * math.lcm(rows_per_slab, 2048)
-        padded = round_up(padded, unit)
     return TableSpec(logical_size, slab, align, rows_per_slab, padded)
-
-
-def to_rows(flat: jnp.ndarray, spec: TableSpec) -> jnp.ndarray:
-    """Flat [n] → [num_rows, 128], zero-padding the tail."""
-    n = flat.shape[0]
-    if n < spec.padded_size:
-        flat = jnp.concatenate(
-            [flat, jnp.zeros(spec.padded_size - n, flat.dtype)]
-        )
-    return flat.reshape(spec.num_rows, LANE)
-
-
-def to_flat(rows: jnp.ndarray, spec: TableSpec) -> jnp.ndarray:
-    """[num_rows, 128] → flat [logical_size]."""
-    return rows.reshape(-1)[: spec.logical_size]
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +115,8 @@ def gather(table: jnp.ndarray, ids: jnp.ndarray, spec: TableSpec):
         pos = jax.lax.shift_right_logical(ids & (LANE - 1), pos_bits)
         oh = jax.nn.one_hot(pos, P, dtype=table.dtype)  # [..., P]
         seg = rows.reshape(*rows.shape[:-1], P, spec.align)
-        slabs = jnp.einsum("...p,...pa->...a", oh, seg)[..., : spec.slab]
+        slabs = jnp.einsum("...p,...pa->...a", oh, seg,
+                           precision=EXACT)[..., : spec.slab]
         return slabs, (rid, oh)
     # multi-row slabs (F·k > 128): consecutive whole rows
     G = spec.rows_per_slab
@@ -161,7 +141,8 @@ def expand_grads(aux, g: jnp.ndarray, spec: TableSpec):
             grows = g
         else:
             P = spec.positions
-            grows = jnp.einsum("...p,...a->...pa", oh, g).reshape(*g.shape[:-1], LANE)
+            grows = jnp.einsum("...p,...a->...pa", oh, g,
+                               precision=EXACT).reshape(*g.shape[:-1], LANE)
         return rid.reshape(-1), grows.reshape(-1, LANE)
     G = spec.rows_per_slab
     grows = g.reshape(*g.shape[:-1], G, LANE)
@@ -183,7 +164,7 @@ def gather_scalars(table: jnp.ndarray, ids: jnp.ndarray):
     lane = ids & (LANE - 1)
     rows = jnp.take(table, rid, axis=0)  # [..., 128]
     oh = jax.nn.one_hot(lane, LANE, dtype=table.dtype)
-    vals = jnp.einsum("...l,...l->...", rows, oh)
+    vals = jnp.einsum("...l,...l->...", rows, oh, precision=EXACT)
     return vals, (rid, oh)
 
 
@@ -260,11 +241,10 @@ def _dedup_runs(keys: jnp.ndarray, payload: jnp.ndarray):
     ``(keys, payload_dedup)``.
 
     Two paths. For moderate widths, a pairwise comparison + one-hot
-    contraction — B·W²·P MXU flops, order-preserving, no sort (a TPU sort of
-    [B, W] along the minor axis measured ~10 ms at B=32k even for W=4; the
-    pairwise form is ~50 µs) — but its [B, W, W] equality tensor is gated by
-    ``_PAIRWISE_EQ_BUDGET_BYTES`` (it would be ~2 GB at B=32k, W=128). Wide
-    inputs take the sort-and-run-sum path, which reorders entries.
+    contraction — B·W²·P flops, order-preserving, no sort — but its
+    [B, W, W] equality tensor is gated by ``_PAIRWISE_EQ_BUDGET_BYTES`` (it
+    would be ~2 GB at B=32k, W=128). Wide inputs take the sort-and-run-sum
+    path, which reorders entries.
     """
     B, W = keys.shape
     if dedup_preserves_order(B, W):
@@ -276,7 +256,7 @@ def _dedup_pairwise(keys: jnp.ndarray, payload: jnp.ndarray):
     eq = keys[:, :, None] == keys[:, None, :]  # [B, W, W]
     dup_before = jnp.tril(eq, k=-1).any(axis=2)
     totals = jnp.einsum(
-        "bij,bjp->bip", eq.astype(payload.dtype), payload
+        "bij,bjp->bip", eq.astype(payload.dtype), payload, precision=EXACT
     )
     p_d = jnp.where(~dup_before[:, :, None], totals,
                     jnp.zeros((), payload.dtype))
@@ -315,11 +295,10 @@ def expand_scalar_grads_dedup(ids: jnp.ndarray, g: jnp.ndarray):
 
     ``ids [B, W]`` feature ids, ``g [B, W]`` scalar cotangents. An id maps
     bijectively to a (row, lane), so run-summing the *scalars* keyed by id
-    is exactly the (Σg)² dedup — at 1/128th the HBM traffic of deduping the
-    expanded ``[K, 128]`` rows (measured ~10 ms → ~1 ms of a 2^25-table
-    train step at B=32k). Entries left separate that share a row but not a
-    lane are harmless: both the XLA scatter-add and the Pallas sweep update
-    lanes elementwise, and a zero lane contributes 0 to acc and weight.
+    is exactly the (Σg)² dedup — at 1/128th the memory traffic of deduping
+    the expanded ``[K, 128]`` rows. Entries left separate that share a row
+    but not a lane are harmless: the scatter-add updates lanes elementwise,
+    and a zero lane contributes 0 to acc and weight.
     The lane one-hot is recomputed from the sorted ids.
     """
     if ids.shape[-1] > 1:
@@ -355,5 +334,6 @@ def expand_grads_dedup(ids: jnp.ndarray, g: jnp.ndarray, spec: TableSpec):
         grows = g
     else:
         oh = jax.nn.one_hot(wid & (P - 1), P, dtype=g.dtype)
-        grows = jnp.einsum("...p,...a->...pa", oh, g).reshape(*g.shape[:-1], LANE)
+        grows = jnp.einsum("...p,...a->...pa", oh, g,
+                           precision=EXACT).reshape(*g.shape[:-1], LANE)
     return rid.reshape(-1), grows.reshape(-1, LANE)

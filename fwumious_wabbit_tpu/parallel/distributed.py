@@ -1,15 +1,15 @@
 """Multi-host initialization — the missing piece of the distributed backend
-(SURVEY.md §2.4: "jax.distributed for multi-host initialization, a Mesh with
-('data','table') axes, all_to_all over ICI ... DCN-aware sharding between
-pod slices").
+(SURVEY.md §2.4: jax.distributed for multi-host initialization, a Mesh with
+('data','table') axes, all-to-all id exchange).
 
 The reference is strictly single-machine (reference: src/hogwild.rs:24-104
 is its only parallel-training mechanism); this module is net-new capability.
 ``jax.distributed.initialize`` wires the N processes of a multi-host run
 into one JAX runtime: after it returns, ``jax.devices()`` spans ALL hosts
 and the ('data','table') mesh + collectives (parallel/mesh.py,
-parallel/sharded.py) work unchanged — XLA routes intra-slice collectives
-over ICI and inter-slice ones over DCN.
+parallel/sharded.py) work unchanged — XLA hands the collectives to NCCL,
+over NVLink between the cards of one host and over the network between
+hosts.
 
 Usage (one process per host, same command everywhere):
 
@@ -35,8 +35,9 @@ def initialize_multihost(coordinator: str | None, num_hosts: int | None,
     """Initialize jax.distributed for an ``num_hosts``-process run.
 
     Returns True if distributed mode is active. Arguments may all be None
-    (single-host: no-op). With TPU metadata available (GKE/Cloud TPU),
-    ``jax.distributed.initialize()`` autodetects whatever is not given.
+    (single-host: no-op). Nothing detects a cluster here: a multi-host run
+    gives the coordinator address, the process count and this process's
+    index.
     """
     global _initialized
     if _initialized:

@@ -2,7 +2,7 @@
 
 The reference is single-machine: its only parallelism is hogwild
 shared-memory data parallelism (reference: src/hogwild.rs:24-104) and a
-serving thread pool. On TPU those capabilities map to (SURVEY.md §2.4):
+serving thread pool. Here those capabilities map to (SURVEY.md §2.4):
 
 * **data axis** — synchronous large-batch data parallelism replaces hogwild:
   the batch dimension of every input array is sharded over ``data``;
@@ -15,7 +15,11 @@ serving thread pool. On TPU those capabilities map to (SURVEY.md §2.4):
   (GSPMD inserts the collectives — the explicit all-to-all id-exchange
   kernel is the optimized path for very large tables).
 
-Tables are padded to a multiple of the table-axis size so shards are equal.
+Tables have a multiple of the table-axis size as their row count, so
+shards are equal, and are built or loaded already sharded.
+The mesh is a plain reshape of the device list: the cards of one host are
+joined all to all (NVLink), so no axis order is preferred, and XLA hands
+the collectives to NCCL.
 """
 
 from __future__ import annotations
@@ -78,32 +82,27 @@ def batch_sharding(mesh: Mesh, batch: dict, both_axes: bool = False) -> dict:
     return {k: NamedSharding(mesh, P(axes)) for k in batch}
 
 
-def pad_params_for_mesh(model, params: dict, mesh: Mesh) -> dict:
-    """Pad table *row* counts to a multiple of the table-axis size (rows
-    beyond the hash range are never addressed — masked hashes are < 2^bits).
-    Large tables pad so each SHARD is also a multiple of the Pallas
-    sparse-update sweep chunk (2048 rows), keeping the kernel eligible
-    per shard (ops/pallas/sparse_update.py)."""
-    n_table = mesh.shape[TABLE_AXIS]
-    if n_table == 1:
-        return params
-    import jax.numpy as jnp
+def mesh_from_args(args) -> Mesh | None:
+    """The run's mesh from ``--fwt_data_axis`` / ``--fwt_table_axis``, or
+    None for a single-device run."""
+    n_table = int(getattr(args, "fwt_table_axis", 1) or 1)
+    n_data = getattr(args, "fwt_data_axis", None)
+    if n_table == 1 and (n_data is None or int(n_data) <= 1):
+        return None
+    return make_mesh(n_data=int(n_data) if n_data is not None else None,
+                     n_table=n_table)
 
-    out = dict(params)
-    for key in ("lr_w", "lr_acc", "ffm_w", "ffm_acc"):
-        if key in out:
-            rows = out[key].shape[0]
-            unit = n_table * 2048 if rows >= n_table * 2048 else n_table
-            target = round_up(rows, unit)
-            if target != rows:
-                out[key] = jnp.concatenate(
-                    [out[key],
-                     jnp.zeros((target - rows, out[key].shape[1]), out[key].dtype)]
-                )
-    return out
+
+def table_rows(rows: int, mesh: Mesh | None) -> int:
+    """Row count of a table on ``mesh``: a multiple of the table-axis size,
+    so that shards are equal (rows beyond the hash range are never
+    addressed — masked hashes are < 2^bits)."""
+    return rows if mesh is None else round_up(rows, mesh.shape[TABLE_AXIS])
 
 
 def shard_params(params: dict, shardings: dict):
+    """Place ``params`` (host or device arrays) with ``shardings``: a host
+    array goes to each device as that device's shard only."""
     return jax.tree.map(
         lambda x, s: jax.device_put(x, s), params, shardings,
         is_leaf=lambda x: not isinstance(x, (dict, list)),

@@ -14,7 +14,8 @@ replicated along ``table``):
 * **update**: occurrence gradient rows are ``all_gather``-ed over ``data``
   (every table shard replays the whole batch), scatter-applied owner-side.
 * Per-shard communication grows with the mesh — simple and exactly
-  equivalent to the single-device step, but the wrong shape for a pod.
+  equivalent to the single-device step, but the wrong shape for a
+  large mesh.
 
 **a2a** (the scalable path — the all-to-all ID exchange of SURVEY §2.4;
 batch sharded over BOTH axes, so each device owns ``B/(n_d·n_t)`` examples):
@@ -65,30 +66,19 @@ def _sharded_take(local: jnp.ndarray, rid: jnp.ndarray) -> jnp.ndarray:
     return jax.lax.psum(rows, TABLE_AXIS)
 
 
-def _apply_local_rows(opt, w_local, acc_local, lrid, g):
+def _apply_local_rows(opt, w_local, acc_local, lrid, g, pre_scaled=False):
     """The owner-side optimizer tail shared by both exchanges: bump acc with
     g², rate from the bumped acc, scatter-subtract. ``lrid`` must be in
     range; masked-out occurrences carry g == 0 (zero adds are no-ops and
-    rate·0 == 0, flex_update zeroes the 0·inf corner)."""
-    if opt.batch_mean:
+    rate·0 == 0, flex_update zeroes the 0·inf corner). ``pre_scaled``: the
+    batch-mean cap was already applied from the host's counts."""
+    if opt.batch_mean and not pre_scaled:
         # capped per-weight multiplicity across the (gathered, global)
-        # batch — the same counts the single-device step sees, so
-        # trajectories stay equal
+        # batch — the counts the single-device step computes when the
+        # batch carries none, so trajectories stay equal
         from ..ops.adagrad import batch_mean_grads
 
         g = batch_mean_grads(w_local.shape[0], lrid, g, opt.batch_cap)
-    if opt._use_pallas(w_local.shape[0], lrid.shape[0]):
-        # per-shard table-sweep kernel (ops/pallas/sparse_update.py) —
-        # masked-out occurrences carry g == 0 and in-range clipped ids, so
-        # they are inert in the kernel exactly as in the scatter path
-        from ..ops.pallas.sparse_update import sparse_adagrad_update
-
-        w2, acc2 = sparse_adagrad_update(
-            w_local, acc_local if opt.has_state else None, lrid, g,
-            opt.learning_rate, opt.power_t, opt.initial_acc_gradient,
-            kind=opt.kind,
-        )
-        return w2, (acc2 if opt.has_state else acc_local)
     if not opt.has_state:  # SGD
         return w_local.at[lrid].add(-opt.learning_rate * g), acc_local
     acc_new = acc_local.at[lrid].add(g * g)
@@ -103,7 +93,7 @@ def _apply_local_rows(opt, w_local, acc_local, lrid, g):
     return w_local.at[lrid].add(-upd), acc_new
 
 
-def _sharded_row_update(opt, w_local, acc_local, rid, grows):
+def _sharded_row_update(opt, w_local, acc_local, rid, grows, pre_scaled):
     """Owner-side AdaGrad row update for a row-sharded table (psum exchange).
 
     ``rid``/``grows`` are this data-shard's occurrences; they are gathered
@@ -117,7 +107,7 @@ def _sharded_row_update(opt, w_local, acc_local, rid, grows):
     ok = (lrid >= 0) & (lrid < rl)
     lrid_safe = jnp.clip(lrid, 0, rl - 1)
     g = jnp.where(ok[:, None], grows_all, 0.0)
-    return _apply_local_rows(opt, w_local, acc_local, lrid_safe, g)
+    return _apply_local_rows(opt, w_local, acc_local, lrid_safe, g, pre_scaled)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +159,8 @@ def _a2a_take(local: jnp.ndarray, rid: jnp.ndarray, n_t: int, capacity: int):
     return rows.reshape(*shape, lane)
 
 
-def _a2a_row_update(opt, w_local, acc_local, rid, grows, n_t: int, capacity: int):
+def _a2a_row_update(opt, w_local, acc_local, rid, grows, n_t: int, capacity: int,
+                    pre_scaled: bool = False):
     """Owner-side row update via all-to-all: ids + gradient rows travel to
     their owner column over TABLE_AXIS, then one all_gather over DATA_AXIS
     merges the owner-bucketed rows from the other data replicas — per-shard
@@ -197,7 +188,8 @@ def _a2a_row_update(opt, w_local, acc_local, rid, grows, n_t: int, capacity: int
     ok = (lrid >= 0) & (lrid < rl)
     g = jnp.where(ok[:, None], all_g, 0.0)
     lrid_safe = jnp.clip(lrid, 0, rl - 1)
-    w, acc = _apply_local_rows(opt, w_local, acc_local, lrid_safe, g)
+    w, acc = _apply_local_rows(opt, w_local, acc_local, lrid_safe, g,
+                               pre_scaled)
     # dropped = overflowed occurrences that actually carried gradient:
     # padding slots (id 0, zero rows) bucket to owner 0 and can overflow a
     # tight capacity, but losing them loses nothing — counting them would
@@ -283,14 +275,15 @@ def make_sharded_train_step(model: FwModel, mesh, exchange: str = "auto",
             return _a2a_take(local, rid, n_t, cap)
         return _sharded_take(local, rid)
 
-    def row_update(opt, w_local, acc_local, rid, grows):
+    def row_update(opt, w_local, acc_local, rid, grows, pre_scaled):
         if a2a:
             cap = a2a_capacity(rid.size, n_t, capacity_factor)
             w, acc, d = _a2a_row_update(opt, w_local, acc_local, rid, grows,
-                                        n_t, cap)
+                                        n_t, cap, pre_scaled)
             drops.append(d)
             return w, acc
-        return _sharded_row_update(opt, w_local, acc_local, rid, grows)
+        return _sharded_row_update(opt, w_local, acc_local, rid, grows,
+                                   pre_scaled)
 
     def local_step(params, batch):
         drops.clear()
@@ -300,7 +293,8 @@ def make_sharded_train_step(model: FwModel, mesh, exchange: str = "auto",
         lane = lr_ids & (tables.LANE - 1)
         lr_rows = take(params["lr_w"], rid_lr)
         lane_oh = jax.nn.one_hot(lane, tables.LANE, dtype=lr_rows.dtype)
-        lr_wg = jnp.einsum("...l,...l->...", lr_rows, lane_oh)
+        lr_wg = jnp.einsum("...l,...l->...", lr_rows, lane_oh,
+                           precision=tables.EXACT)
         lr_aux = (rid_lr, lane_oh)
 
         if has_ffm:
@@ -319,7 +313,8 @@ def make_sharded_train_step(model: FwModel, mesh, exchange: str = "auto",
                         ids & (tables.LANE - 1), pos_bits)
                     oh = jax.nn.one_hot(pos, p_cnt, dtype=rows.dtype)
                     seg = rows.reshape(*rows.shape[:-1], p_cnt, spec.align)
-                    emb = jnp.einsum("...p,...pa->...a", oh, seg)[..., : spec.slab]
+                    emb = jnp.einsum("...p,...pa->...a", oh, seg,
+                                     precision=tables.EXACT)[..., : spec.slab]
                     ffm_aux = (rid_ffm, oh)
             else:
                 g_cnt = spec.rows_per_slab
@@ -403,10 +398,16 @@ def make_sharded_train_step(model: FwModel, mesh, exchange: str = "auto",
         # -- sharded row updates --------------------------------------------
         B = dlogit.shape[0]  # local batch
         # per-example dedup before any collective: the reference updates
-        # each weight once per example with the summed gradient. The
-        # pre-expansion dedup (ops/tables.py) is used when batch_mean is
-        # off, mirroring train/step.py.
-        if model.opt_lr.has_state and not model.opt_lr.batch_mean:
+        # each weight once per example with the summed gradient. As in
+        # train/step.py, host multiplicity counts (computed over the global
+        # batch before it was sharded) apply the batch-mean cap to the
+        # pre-expansion scalars/slabs, and the cheap pre-expansion dedup
+        # runs whenever batch_mean is off or already applied.
+        lr_counts = batch.get("lr_counts")
+        lr_pre = model.opt_lr.batch_mean and lr_counts is not None
+        if lr_pre:
+            g_lr = g_lr * model.opt_lr.count_factor(lr_counts)
+        if model.opt_lr.has_state and (not model.opt_lr.batch_mean or lr_pre):
             lr_ids, _ = model.lr_ids_combos(batch)
             rid_flat, grows_lr = tables.expand_scalar_grads_dedup(lr_ids, g_lr)
         else:
@@ -414,12 +415,20 @@ def make_sharded_train_step(model: FwModel, mesh, exchange: str = "auto",
             if model.opt_lr.has_state:
                 rid_flat, grows_lr = tables.dedup_rows(rid_flat, grows_lr, B)
         new_params["lr_w"], lr_acc = row_update(
-            model.opt_lr, params["lr_w"], params.get("lr_acc"), rid_flat, grows_lr)
+            model.opt_lr, params["lr_w"], params.get("lr_acc"), rid_flat,
+            grows_lr, lr_pre)
         if lr_acc is not None:
             new_params["lr_acc"] = lr_acc
 
         if has_ffm:
-            if (model.opt_ffm.has_state and not model.opt_ffm.batch_mean
+            ffm_counts = batch.get("ffm_counts")
+            ffm_pre = model.opt_ffm.batch_mean and ffm_counts is not None
+            if ffm_pre:
+                f = model.opt_ffm.count_factor(ffm_counts)
+                g_emb = g_emb * f.reshape(
+                    *ffm_counts.shape, *([1] * (g_emb.ndim - ffm_counts.ndim)))
+            if (model.opt_ffm.has_state
+                    and (not model.opt_ffm.batch_mean or ffm_pre)
                     and model.ffm_spec.rows_per_slab == 1):
                 rid_flat, grows_ffm = tables.expand_grads_dedup(
                     batch["ffm_ids"], g_emb, model.ffm_spec)
@@ -429,7 +438,7 @@ def make_sharded_train_step(model: FwModel, mesh, exchange: str = "auto",
                     rid_flat, grows_ffm = tables.dedup_rows(rid_flat, grows_ffm, B)
             new_params["ffm_w"], ffm_acc = row_update(
                 model.opt_ffm, params["ffm_w"], params.get("ffm_acc"),
-                rid_flat, grows_ffm)
+                rid_flat, grows_ffm, ffm_pre)
             if ffm_acc is not None:
                 new_params["ffm_acc"] = ffm_acc
 

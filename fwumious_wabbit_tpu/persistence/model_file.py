@@ -193,12 +193,15 @@ def load_model(
     path: str | Path,
     immutable: bool = False,
     args=None,
+    mesh=None,
 ):
     """Returns (mi, vw, model, params).
 
     ``immutable=True`` loads weights only (no optimizer state) and converts
     the config to SGD — the serving/inference path
-    (reference: src/persistence.rs:127-174)."""
+    (reference: src/persistence.rs:127-174). With a ``mesh``, the params
+    go from the host straight to their shardings on it
+    (parallel/mesh.py), each device receiving only its shard."""
     with open(path, "rb") as fh:
         mi, vw = _read_header_fh(fh)
         if args is not None:
@@ -262,28 +265,33 @@ def load_model(
         if args is not None else "auto",
         batch_cap=float(getattr(args, "fwt_batch_cap", 8.0) or 8.0)
         if args is not None else 8.0,
-        pallas_update=(getattr(args, "fwt_pallas_update", "auto") or "auto")
-        if args is not None else "auto",
     )
+    import jax
     import jax.numpy as jnp
 
     from ..ops import tables
+    from ..parallel import mesh as pmesh
 
     def _lift(k, v):
         if k in ("lr_w", "lr_acc"):
-            return tables.to_rows(jnp.asarray(v), model.lr_spec)
-        if k in ("ffm_w", "ffm_acc"):
-            return tables.to_rows(jnp.asarray(v), model.ffm_spec)
-        return jnp.asarray(v)
+            spec = model.lr_spec
+        elif k in ("ffm_w", "ffm_acc"):
+            spec = model.ffm_spec
+        else:
+            return v
+        # [rows, 128] on the host, zero past the saved floats
+        n_rows = pmesh.table_rows(spec.num_rows, mesh)
+        if v.size == n_rows * tables.LANE:
+            return v.reshape(n_rows, tables.LANE)
+        rows = np.zeros((n_rows, tables.LANE), np.float32)
+        rows.reshape(-1)[: v.size] = v
+        return rows
 
-    params = {
-        k: ([{kk: jnp.asarray(vv) for kk, vv in layer.items()} for layer in v]
-            if k == "nn" else
-            ({kk: jnp.asarray(vv) for kk, vv in v.items()} if isinstance(v, dict)
-             else _lift(k, v)))
-        for k, v in params.items()
-    }
-    return mi, vw, model, params
+    params = {k: _lift(k, v) for k, v in params.items()}
+    if mesh is not None:
+        return mi, vw, model, pmesh.shard_params(
+            params, pmesh.param_sharding(mesh, params))
+    return mi, vw, model, jax.tree.map(jnp.asarray, params)
 
 
 def _read_header_fh(fh):

@@ -6,7 +6,7 @@ hot-swaps model weights while other connections keep predicting (replies
 ``hogwild_load success`` / ``ERR: hogwild_load fail``). Parse errors reply
 ``ERR: <message>`` and drop the connection.
 
-Design differences from the reference, TPU-motivated:
+Design differences from the reference, for a batched device engine:
 
 * worker threads share one params pytree on device (JAX arrays are immutable
   and thread-safe to read; a hogwild_load just swaps the reference —

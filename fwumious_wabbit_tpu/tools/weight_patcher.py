@@ -21,6 +21,17 @@ from pathlib import Path
 _NATIVE = Path(__file__).resolve().parent.parent / "native" / "weight_patcher"
 
 
+def native_binary() -> Path | None:
+    """The C++ patcher (native/weight_patcher.cpp), built on first use;
+    None when it cannot be built (it links zlib)."""
+    if not _NATIVE.exists():
+        r = subprocess.run(["make", "-C", str(_NATIVE.parent), "-s",
+                            _NATIVE.name], capture_output=True, text=True)
+        if r.returncode != 0:
+            return None
+    return _NATIVE
+
+
 def _write_varint(out: bytearray, value: int) -> None:
     while value >= 0x80:
         out.append((value & 0x7F) | 0x80)
@@ -69,7 +80,7 @@ def recreate_bytes(a: bytes, diff: bytes) -> bytes:
 
 
 def create_diff(a_path, b_path, diff_path, use_native: bool = True) -> None:
-    if use_native and _NATIVE.exists():
+    if use_native and native_binary() is not None:
         subprocess.run(
             [str(_NATIVE), "create_diff", str(a_path), str(b_path), str(diff_path)],
             check=True,
@@ -80,7 +91,7 @@ def create_diff(a_path, b_path, diff_path, use_native: bool = True) -> None:
 
 
 def recreate(a_path, diff_path, out_path, use_native: bool = True) -> None:
-    if use_native and _NATIVE.exists():
+    if use_native and native_binary() is not None:
         subprocess.run(
             [str(_NATIVE), "recreate", str(a_path), str(diff_path), str(out_path)],
             check=True,

@@ -1,7 +1,7 @@
 """The jitted train/predict steps.
 
 One step = forward + backward + AdaGrad update for a whole padded batch,
-compiled by XLA into a single TPU program (this replaces the reference's
+compiled by XLA into a single device program (this replaces the reference's
 per-example recursive block sweep, reference: src/regressor.rs:356-379,
 src/block_helpers.rs:218-273).
 

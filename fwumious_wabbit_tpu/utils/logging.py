@@ -1,5 +1,5 @@
 """Logging: level from the LOG_LEVEL env var, plus device topology logged at
-startup (the TPU analogue of the reference's CPU-feature detection,
+startup (this engine's analogue of the reference's CPU-feature detection,
 reference: src/logging_layer.rs:4-47)."""
 
 from __future__ import annotations

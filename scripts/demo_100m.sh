@@ -8,12 +8,13 @@
 #
 # Records per-pass wall/throughput, the logloss trajectory on a held-out
 # 200k evaluation slice after each pass (non-divergence evidence), and the
-# peak RSS of the biggest pass, into docs/evidence/demo_100m.json.
+# peak RSS of the biggest pass, into .bench_cache/demo_100m.json. Each pass
+# is its own process, one after the other, so only one holds the card.
 #
-# Usage: bash scripts/demo_100m.sh  (from the repo root; needs the TPU)
+# Usage: bash scripts/demo_100m.sh  (needs the GPU)
 set -u
 cd "$(dirname "$0")/.."
-OUT=docs/evidence/demo_100m.json
+OUT=.bench_cache/demo_100m.json
 WORK=.bench_cache/demo100m
 mkdir -p "$WORK"
 

@@ -5,7 +5,7 @@
 # (a) inference == full-weight predictions, (b) predictions non-degenerate,
 # (c) balanced accuracy on test-hard > 0.80.
 set -e
-cd /root/repo
+cd "$(dirname "$0")/.."
 D=/tmp/ffm_verify/datasets
 O=/tmp/ffm_verify
 mkdir -p "$O"

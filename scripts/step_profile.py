@@ -1,7 +1,7 @@
 """Device-side composition profile of the packed LR train step.
 
-Times, in ONE process (interleaved reps — the only comparable form on
-this device, CLAUDE.md), the full packed train step against ablated
+Times, in ONE process (interleaved reps, so that all variants share one
+card and one window), the full packed train step against ablated
 variants on the same device-resident superbatch:
 
   full      — production packed train step (unpack + K steps)
@@ -62,7 +62,7 @@ def main() -> int:
 
     variants = {}
 
-    model = FwModel(mi, precision="default")
+    model = FwModel(mi)
     variants["full"] = (model, P.make_packed_train_step(model, lay, K))
 
     # forward-only: scan the predict body over the unpacked rows
@@ -79,7 +79,7 @@ def main() -> int:
 
     # no_counts: same model class with batch_mean disabled
     mi2 = ModelInstance.from_cmdline(args, vw)
-    m2 = FwModel(mi2, precision="default", batch_mean_mode="off")
+    m2 = FwModel(mi2, batch_mean_mode="off")
     variants["no_counts"] = (m2, P.make_packed_train_step(m2, lay, K))
 
     # warm all

@@ -1,7 +1,7 @@
-"""Auto-mode interaction matrix (VERDICT r3 #5): six adaptive producer
-subsystems — vocab dictionary encoding (incl. the mid-run auto-flip),
-id bit-packing, superbatching, the fetch ring, the Pallas table-sweep
-update, the batch-mean multiplicity cap — interact inside one producer
+"""Auto-mode interaction matrix: five adaptive producer subsystems — vocab
+dictionary encoding (incl. the mid-run auto-flip), id bit-packing,
+superbatching, the fetch ring, the batch-mean multiplicity cap — and the
+pack-cache replay interact inside one producer
 (train/loop.py), each individually identity-tested but previously never
 swept in combination. Every combination must be byte-identical to the
 plain unpacked path: all of them are pure TRANSFER/DISPATCH re-encodings,
@@ -9,13 +9,6 @@ not semantics.
 
 CI runs a pairwise-covering subset; set FWT_FULL_MATRIX=1 to sweep the
 full cross product (nightly-style).
-
-Note on the `pallas` axis: on the CPU test backend the kernel dispatch
-check (ops/adagrad.py _use_pallas) returns False regardless of the flag,
-so this axis verifies only the flag plumbing here; the kernel itself is
-identity-tested in interpret mode by tests/test_pallas_sparse_update.py,
-and its device-side interaction surface is the update call, which these
-combinations do exercise through the XLA path.
 """
 
 import itertools
@@ -35,7 +28,6 @@ AXES = {
     "bitpack": ["on", "off"],
     "superbatch": ["1", "8"],
     "ring": ["0", "4"],
-    "pallas": ["on", "off"],
     "batch_mean": ["on", "auto"],
     "pack_cache": ["off", "replay"],
 }
@@ -49,13 +41,13 @@ AXES = {
 CI_COMBOS = [
     dict(zip(AXES, vals))
     for vals in [
-        ("on", "on", "8", "0", "off", "on", "off"),      # all-packed default
-        ("off", "off", "1", "0", "off", "on", "off"),    # plainest, no pack
-        ("flip", "on", "8", "4", "off", "auto", "off"),  # flip x ring
-        ("flip", "on", "8", "0", "on", "on", "replay"),  # flip x replay x pallas
-        ("on", "on", "8", "0", "on", "auto", "off"),     # vocab x pallas
-        ("on", "on", "8", "4", "on", "auto", "replay"),  # vocab x ring x replay
-        ("off", "on", "1", "4", "off", "on", "replay"),  # degenerate: K=1
+        ("on", "on", "8", "0", "on", "off"),       # all-packed default
+        ("off", "off", "1", "0", "on", "off"),     # plainest, no pack
+        ("flip", "on", "8", "4", "auto", "off"),   # flip x ring
+        ("flip", "on", "8", "0", "on", "replay"),  # flip x replay
+        ("on", "on", "8", "0", "auto", "off"),     # vocab x auto batch_mean
+        ("on", "on", "8", "4", "auto", "replay"),  # vocab x ring x replay
+        ("off", "on", "1", "4", "on", "replay"),   # degenerate: K=1
         # disables packing, so ring/replay must gracefully no-op
     ]
 ]
@@ -75,7 +67,6 @@ def _argv(combo: dict, data, preds, model):
     argv += ["--fwt_bitpack", combo["bitpack"]]
     argv += ["--fwt_superbatch", combo["superbatch"]]
     argv += ["--fwt_fetch_stack", combo["ring"]]
-    argv += ["--fwt_pallas_update", combo["pallas"]]
     argv += ["--fwt_batch_mean", combo["batch_mean"]]
     if combo["pack_cache"] == "replay":
         argv += ["--fwt_pack_cache", "on"]
@@ -94,14 +85,14 @@ def matrix_env(tmp_path_factory):
     # small but multi-superbatch: B=256 (FLAGS), so 8 x 256 = 2048/group
     gen_dataset(d, n_train=6000, n_eval=10)
     # baseline: the plain unpacked path — no slimming, no superbatch, no
-    # ring, no pallas, explicit batch_mean on (auto resolves to on for
+    # ring, explicit batch_mean on (auto resolves to on for
     # this power_t 0 config; asserting both keeps the oracle unambiguous)
     preds, model = d / "base.preds", d / "base.model"
     run_cli(FLAGS + ["--data", str(d / "train.vw"), "-p", str(preds),
                      "-f", str(model), "--save_resume",
                      "--fwt_vocab", "off", "--fwt_bitpack", "off",
                      "--fwt_superbatch", "1", "--fwt_fetch_stack", "0",
-                     "--fwt_pallas_update", "off", "--fwt_batch_mean", "on",
+                     "--fwt_batch_mean", "on",
                      "--fwt_pack_cache", "off"])
     return d, preds.read_text(), model.read_bytes()
 

@@ -189,8 +189,7 @@ def test_sharded_matches_single_device_with_batch_mean(exchange):
     ref1, ref_preds = make_train_step(model)(model.init_params(), batch)
 
     mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
-    params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-    params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+    params = model.init_params(mesh=mesh)
     sbatch = pmesh.shard_batch(batch, mesh, both_axes=(exchange == "a2a"))
     step = make_sharded_train_step(model, mesh, exchange=exchange)
     new_params, preds = step(params, sbatch)
@@ -279,8 +278,7 @@ def test_apply_rows_host_counts_equals_sort_path():
     g = rng.normal(size=(B, W)).astype(np.float32)
     g[g == 0] = 0.5
 
-    opt = ScopedOptimizer(OPT_ADAGRAD_LUT, 0.1, 0.0, 0.0, batch_mean=True,
-                          pallas_mode="off")
+    opt = ScopedOptimizer(OPT_ADAGRAD_LUT, 0.1, 0.0, 0.0, batch_mean=True)
     w0 = jnp.asarray(rng.normal(size=(nrows, 128)).astype(np.float32))
     acc0 = jnp.zeros((nrows, 128), jnp.float32)
 
@@ -412,7 +410,7 @@ def test_prescale_equals_postscale_cap():
     rows, B, L = 64, 32, 6
     spec = ScopedOptimizer(OPT_ADAGRAD_LUT, learning_rate=0.1, power_t=0.0,
                            initial_acc_gradient=0.0, batch_mean=True,
-                           batch_cap=2.0, pallas_mode="off")
+                           batch_cap=2.0)
     ids = rng.integers(0, rows * 128, (B, L)).astype(np.int32)
     ids[:, 0] = 7  # one hot weight: multiplicity B >> cap
     g = rng.normal(size=(B, L)).astype(np.float32) * 0.1

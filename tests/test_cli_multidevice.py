@@ -92,3 +92,24 @@ def test_cli_mesh_save_load_roundtrip(tmp_path):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(pa["ffm_w"]), np.asarray(pb["ffm_w"]),
                                rtol=1e-5, atol=1e-6)
+
+
+def test_cli_mesh_resumes_from_a_model_file(tmp_path):
+    """``-i`` with a mesh: the loaded model goes to its shardings and the
+    resumed run predicts what the single-device resumed run predicts."""
+    from fwumious_wabbit_tpu.train.loop import main
+
+    data = write_dataset(tmp_path)
+    common = ["--keep", "A", "--keep", "B", "--ffm_k", "4", "--ffm_field",
+              "A", "--ffm_field", "B", "-b", "16", "--adaptive", "-l", "0.1",
+              "--data", str(data), "--fwt_batch_size", "64"]
+    model = tmp_path / "m.fwt"
+    assert main(common + ["-f", str(model), "--save_resume"]) == 0
+    out = {}
+    for tag, extra in {"plain": [], "mesh": ["--fwt_data_axis", "4",
+                                              "--fwt_table_axis", "2"]}.items():
+        pred = tmp_path / f"{tag}.out"
+        assert main(common + ["-i", str(model), "-p", str(pred), *extra]) == 0
+        out[tag] = np.array(pred.read_text().split(), np.float64)
+    assert out["mesh"].shape == (256,)
+    np.testing.assert_allclose(out["mesh"], out["plain"], rtol=1e-5, atol=1e-6)

@@ -226,12 +226,12 @@ def test_fwt_exact_equals_batch_size_one(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--fwt_batch_cap", "4", "--fwt_batch_mean", "on"],
-    ["--fwt_pallas_update", "off"],
+    ["--fwt_compile_cache", "off"],
     ["--hogwild_training", "--hogwild_threads", "4"],
 ])
 def test_accepted_flag_smoke(tmp_path, extra):
     """Remaining knobs parse and train end-to-end: the batch-multiplicity
-    cap, the Pallas dispatch override, and the hogwild flags (accepted;
+    cap, the compile-cache switch, and the hogwild flags (accepted;
     asynchrony maps to batched data parallelism, SURVEY §2.4)."""
     from fwumious_wabbit_tpu.train.loop import main as cli_main
 

@@ -81,9 +81,7 @@ def test_sharded_step_matches_single_device(opt, nn, exchange):
 
     # 4 data x 2 table mesh
     mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
-    params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-    shardings = pmesh.param_sharding(mesh, params)
-    params = pmesh.shard_params(params, shardings)
+    params = model.init_params(mesh=mesh)
     sbatch = pmesh.shard_batch(batch, mesh, both_axes=(exchange == "a2a"))
 
     step = make_sharded_train_step(model, mesh, exchange=exchange)
@@ -111,8 +109,7 @@ def test_sharded_step_matches_single_device(opt, nn, exchange):
 def test_sharded_multi_step_trajectory(exchange):
     model = build_model(Optimizer.ADAGRAD_LUT)
     mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
-    params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-    params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+    params = model.init_params(mesh=mesh)
     ref_params = model.init_params()
     ref_step = make_train_step(model)
     step = make_sharded_train_step(model, mesh, exchange=exchange)
@@ -126,14 +123,49 @@ def test_sharded_multi_step_trajectory(exchange):
                                    rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("exchange", ["psum", "a2a"])
+def test_sharded_step_applies_host_counts(exchange):
+    """Batch-mean counts computed by the host over the GLOBAL batch ride
+    the sharded batch and cap the gradients exactly as on one device. A
+    weight shared by 37 examples has the soft-float code of 40 (rounded
+    up), so the device's exact-count fallback would scale it differently:
+    equality pins that the sharded step uses the host's counts."""
+    from fwumious_wabbit_tpu.ops.adagrad import encode_counts
+    from fwumious_wabbit_tpu.train.loop import host_count_keys
+
+    model = build_model(Optimizer.ADAGRAD_LUT)
+    model.mi.power_t = model.mi.ffm_power_t = 0.0
+    model = FwModel(model.mi)  # batch-mean on for both scopes
+    assert host_count_keys(model) == {"lr": 0, "ffm": 4}
+    batch = make_batch(model, B=64)
+    batch["lr_ids"][:37, 0] = 7  # one hot LR weight in 37 examples
+    for key, shift in host_count_keys(model).items():
+        ids = batch[f"{key}_ids"].astype(np.int64) >> shift
+        _, inv, cnt = np.unique(ids, return_inverse=True, return_counts=True)
+        batch[f"{key}_counts"] = encode_counts(cnt[inv].reshape(ids.shape))
+
+    ref_new, ref_preds = make_train_step(model)(model.init_params(), batch)
+    mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
+    params = model.init_params(mesh=mesh)
+    step = make_sharded_train_step(model, mesh, exchange=exchange,
+                                   capacity_factor=8.0)
+    new, preds = step(params, pmesh.shard_batch(batch, mesh,
+                                                both_axes=exchange == "a2a"))
+    np.testing.assert_allclose(np.asarray(preds), np.asarray(ref_preds),
+                               rtol=1e-6, atol=1e-7)
+    for key in ("lr_w", "lr_acc", "ffm_w", "ffm_acc"):
+        want = np.asarray(ref_new[key])
+        np.testing.assert_allclose(np.asarray(new[key])[: want.shape[0]], want,
+                                   rtol=1e-5, atol=1e-7, err_msg=key)
+
+
 def test_a2a_deep_table_axis():
     """a2a on a 1×8 mesh (pure table sharding) matches single device."""
     model = build_model(Optimizer.ADAGRAD_LUT)
     batch = make_batch(model, B=16)
     ref1, ref_preds = make_train_step(model)(model.init_params(), batch)
     mesh = pmesh.make_mesh(n_data=1, n_table=8, devices=jax.devices()[:8])
-    params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-    params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+    params = model.init_params(mesh=mesh)
     sbatch = pmesh.shard_batch(batch, mesh, both_axes=True)
     # tiny per-device occupancy (K_dev = 12): raise the slack so binomial
     # bucket fluctuation cannot overflow (production K_dev/n_t ≫ 64 makes
@@ -155,8 +187,7 @@ def test_a2a_capacity_overflow_is_masked():
     model = build_model(Optimizer.ADAGRAD_LUT)
     batch = make_batch(model, B=16)
     mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
-    params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-    params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+    params = model.init_params(mesh=mesh)
     sbatch = pmesh.shard_batch(batch, mesh, both_axes=True)
     # capacity_factor 0.02 → capacity 1 slot per destination: heavy overflow
     step = make_sharded_train_step(model, mesh, exchange="a2a",
@@ -181,8 +212,7 @@ def test_table_shards_replicated_across_data_axis(exchange):
     model = build_model(Optimizer.ADAGRAD_LUT)
     batch = make_batch(model, B=32)
     mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
-    params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-    params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+    params = model.init_params(mesh=mesh)
     sbatch = pmesh.shard_batch(batch, mesh, both_axes=(exchange == "a2a"))
     step = make_sharded_train_step(model, mesh, exchange=exchange)
     new_params, _ = step(params, sbatch)
@@ -230,8 +260,7 @@ def test_a2a_comm_volume_shrinks_with_table_axis():
         model = build_model(Optimizer.ADAGRAD_LUT)
         batch = make_batch(model, B=64)
         mesh = pmesh.make_mesh(n_data=nd, n_table=nt, devices=jax.devices()[:8])
-        params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-        params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+        params = model.init_params(mesh=mesh)
         sbatch = pmesh.shard_batch(batch, mesh, both_axes=(exchange == "a2a"))
         step = make_sharded_train_step(model, mesh, exchange=exchange)
         txt = step.lower(params, sbatch).compile().as_text()
@@ -267,8 +296,7 @@ def test_multi_row_slabs_sharded(exchange):
     ref1, ref_preds = make_train_step(model)(model.init_params(), batch)
 
     mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
-    params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-    params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+    params = model.init_params(mesh=mesh)
     sbatch = pmesh.shard_batch(batch, mesh, both_axes=(exchange == "a2a"))
     step = make_sharded_train_step(model, mesh, exchange=exchange,
                                    capacity_factor=8.0)
@@ -291,8 +319,7 @@ def test_a2a_overflow_counter_fires_and_is_zero_at_slack():
     mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
 
     def run(capacity_factor):
-        params = pmesh.pad_params_for_mesh(model, model.init_params(), mesh)
-        params = pmesh.shard_params(params, pmesh.param_sharding(mesh, params))
+        params = model.init_params(mesh=mesh)
         sbatch = pmesh.shard_batch(batch, mesh, both_axes=True)
         step = make_sharded_train_step(model, mesh, exchange="a2a",
                                        capacity_factor=capacity_factor,
@@ -331,3 +358,59 @@ def test_a2a_overflow_counter_via_cli_loop(tmp_path):
     result = run_train_loop(args, mi, vw, model)
     assert result["examples"] == 64
     assert result["a2a_dropped"] == 0
+
+
+@pytest.mark.parametrize("bits,n_data,n_table", [
+    (12, 4, 2), (12, 2, 4), (12, 1, 8), (7, 4, 2),
+], ids=["4x2", "2x4", "1x8", "padded_rows"])
+def test_init_params_on_mesh_builds_shards(bits, n_data, n_table):
+    """Tables are born row-sharded over the table axis: each device holds
+    1/n_table of every table's rows, and the values are the plain init's
+    (rows added to reach a multiple of n_table read zero weights)."""
+    model = build_model(Optimizer.ADAGRAD_LUT, nn=True, bits=bits)
+    mesh = pmesh.make_mesh(n_data=n_data, n_table=n_table,
+                           devices=jax.devices()[: n_data * n_table])
+    plain = model.init_params()
+    params = model.init_params(mesh=mesh)
+    for key in ("lr_w", "lr_acc", "ffm_w", "ffm_acc"):
+        arr, want = params[key], np.asarray(plain[key])
+        rows = pmesh.table_rows(want.shape[0], mesh)
+        assert arr.shape == (rows, want.shape[1])
+        assert arr.sharding.spec == jax.sharding.PartitionSpec(pmesh.TABLE_AXIS, None)
+        shards = arr.addressable_shards
+        assert {s.device for s in shards} == set(mesh.devices.flat)
+        assert all(s.data.shape[0] == rows // n_table for s in shards)
+        got = np.asarray(arr)
+        np.testing.assert_array_equal(got[: want.shape[0]], want)
+        if key.endswith("_w"):
+            assert np.all(got[want.shape[0]:] == 0.0)
+    for la, lb in zip(params["nn"], plain["nn"]):
+        assert la["w"].sharding.is_fully_replicated
+        np.testing.assert_array_equal(np.asarray(la["w"]), np.asarray(lb["w"]))
+
+
+@pytest.mark.parametrize("immutable", [False, True], ids=["resume", "immutable"])
+def test_load_model_on_mesh_places_shards(tmp_path, immutable):
+    """A model file loads straight into the mesh's shardings, equal to the
+    plain load."""
+    from fwumious_wabbit_tpu.config.vwmap import VwNamespaceMap
+    from fwumious_wabbit_tpu.persistence import model_file
+
+    model = build_model(Optimizer.ADAGRAD_LUT, bits=7)
+    rng = np.random.default_rng(0)
+    params = {k: (v + rng.random(v.shape, np.float32)
+                  if k in ("lr_w", "ffm_w") else v)
+              for k, v in model.init_params().items()}
+    path = tmp_path / "m.fwt"
+    vw = VwNamespaceMap.from_string("A,a\nB,b\nC,c\n")
+    model_file.save_model(path, model.mi, vw, model, params)
+    mesh = pmesh.make_mesh(n_data=4, n_table=2, devices=jax.devices()[:8])
+    *_, plain = model_file.load_model(path, immutable=immutable)
+    *_, sharded = model_file.load_model(path, immutable=immutable, mesh=mesh)
+    assert set(sharded) == set(plain)
+    for key in ("lr_w", "ffm_w") + (() if immutable else ("lr_acc", "ffm_acc")):
+        want = np.asarray(plain[key])
+        arr = sharded[key]
+        assert arr.sharding.spec == jax.sharding.PartitionSpec(pmesh.TABLE_AXIS, None)
+        assert arr.shape[0] == pmesh.table_rows(want.shape[0], mesh)
+        np.testing.assert_array_equal(np.asarray(arr)[: want.shape[0]], want)

@@ -9,7 +9,15 @@ import pytest
 
 from fwumious_wabbit_tpu.tools import weight_patcher as wp
 
-HAVE_NATIVE = wp._NATIVE.exists()
+
+
+@pytest.fixture
+def native_patcher():
+    """The C++ patcher, built here if needed; skips without zlib."""
+    path = wp.native_binary()
+    if path is None:
+        pytest.skip("native patcher cannot be built (zlib headers missing)")
+    return path
 
 
 def test_python_roundtrip_identical():
@@ -38,8 +46,7 @@ def test_first_byte_differs():
     assert wp.recreate_bytes(a, diff) == b
 
 
-@pytest.mark.skipif(not HAVE_NATIVE, reason="native patcher not built")
-def test_native_python_interop(tmp_path):
+def test_native_python_interop(tmp_path, native_patcher):
     rng = np.random.default_rng(1)
     a = rng.integers(0, 256, 300000, dtype=np.uint8).tobytes()
     b = bytearray(a)
@@ -66,8 +73,7 @@ def test_native_python_interop(tmp_path):
     )
 
 
-@pytest.mark.skipif(not HAVE_NATIVE, reason="native patcher not built")
-def test_patch_model_files(tmp_path):
+def test_patch_model_files(tmp_path, native_patcher):
     """The production use: ship a checkpoint as a diff against the previous."""
     from fwumious_wabbit_tpu.config.model_instance import ModelInstance, Optimizer
     from fwumious_wabbit_tpu.config.vwmap import VwNamespaceMap
